@@ -100,9 +100,25 @@ def test_bench_script_runs_on_cpu(tmp_path):
     assert result["vs_baseline"] is not None
 
 
+def test_bench_refuses_unasked_cpu():
+    """Without a GPU and without --platform cpu, bench.py prints no
+    result line and exits non-zero."""
+    import os
+
+    repo = __file__.rsplit("/tests/", 1)[0]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, f"{repo}/bench.py", "--reads", "10"],
+        capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert proc.returncode == 2
+    assert proc.stdout.strip() == ""
+    assert "no GPU" in proc.stderr
+
+
 def test_cli_default_shards1_is_sharded_and_exact(fastq, tmp_path):
-    # VERDICT r4 #4: the CLI default (--shards 1) runs the sharded
-    # pipeline (bench.py's benched-best configuration) with exact results
+    # the CLI default (--shards 1) runs the sharded pipeline (bench.py's
+    # configuration too) with exact results
     import tsxcount_tpu.cli as cli
 
     path, reads = fastq

@@ -41,28 +41,35 @@ def test_count_unique_exact(lanes, k):
     assert all(ints[i] < ints[i + 1] for i in range(n - 1))
 
 
+def _expected_hist(kmers, valid):
+    return collections.Counter(
+        tuple(row) for row, ok in zip(kmers.tolist(), valid.tolist()) if ok
+    )
+
+
+def _got_hist(uc):
+    n = int(uc.n_unique)
+    keys = np.asarray(uc.keys)[:n]
+    counts = np.asarray(uc.counts)[:n]
+    return {tuple(row): int(c) for row, c in zip(keys.tolist(), counts)}
+
+
 @pytest.mark.parametrize("lanes,k", [(1, 14), (2, 31), (4, 63)])
-def test_count_unique_pallas_path_matches_xla(lanes, k):
-    """The TPU fast path (Pallas boundary compaction) must agree with the
-    XLA position-sort path, including junk-tail masking semantics."""
+def test_count_unique_matches_numpy(lanes, k):
+    """Batch-sized dedupe against a host histogram, with the valid flags
+    marking exactly the n_unique prefix."""
     spec = KmerSpec(k)
     rng = np.random.default_rng(100 + lanes)
     p = 4096
     kmers = _random_kmer_batch(rng, p, spec.lanes, spec.top_lane_mask,
                                vocab=300)
     valid = rng.random(p) < 0.85
-    kj, vj = jnp.asarray(kmers), jnp.asarray(valid)
-    ref = count_unique(kj, vj, spec=spec, force_pallas=False)
-    got = count_unique(kj, vj, spec=spec, force_pallas=True)
-    n = int(ref.n_unique)
-    assert int(got.n_unique) == n
-    np.testing.assert_array_equal(
-        np.asarray(got.keys)[:n], np.asarray(ref.keys)[:n]
+    uc = jax.jit(lambda a, b: count_unique(a, b, spec=spec))(
+        jnp.asarray(kmers), jnp.asarray(valid)
     )
-    np.testing.assert_array_equal(
-        np.asarray(got.counts)[:n], np.asarray(ref.counts)[:n]
-    )
-    np.testing.assert_array_equal(np.asarray(got.valid), np.asarray(ref.valid))
+    assert _got_hist(uc) == dict(_expected_hist(kmers, valid))
+    n = int(uc.n_unique)
+    np.testing.assert_array_equal(np.asarray(uc.valid), np.arange(p) < n)
 
 
 @pytest.mark.parametrize("lanes,k", [(2, 31), (3, 48), (4, 63), (8, 127)])
@@ -116,21 +123,17 @@ def test_count_unique_uniform_prefix_collision_fallback():
     )
 
 
-def test_count_unique_pallas_all_and_none_valid():
+@pytest.mark.parametrize("all_valid", [True, False])
+def test_count_unique_all_and_none_valid(all_valid):
     spec = KmerSpec(14)
     p = 4096
     rng = np.random.default_rng(7)
     kmers = _random_kmer_batch(rng, p, 1, spec.top_lane_mask, vocab=9)
-    for valid in (np.ones(p, bool), np.zeros(p, bool)):
-        ref = count_unique(jnp.asarray(kmers), jnp.asarray(valid), spec=spec,
-                           force_pallas=False)
-        got = count_unique(jnp.asarray(kmers), jnp.asarray(valid), spec=spec,
-                           force_pallas=True)
-        n = int(ref.n_unique)
-        assert int(got.n_unique) == n
-        np.testing.assert_array_equal(
-            np.asarray(got.counts)[:n], np.asarray(ref.counts)[:n]
-        )
+    valid = np.full(p, all_valid)
+    uc = count_unique(jnp.asarray(kmers), jnp.asarray(valid), spec=spec)
+    assert _got_hist(uc) == dict(_expected_hist(kmers, valid))
+    n = int(uc.n_unique)
+    assert int(np.asarray(uc.counts)[:n].sum()) == int(valid.sum())
 
 
 def test_count_unique_all_invalid():
@@ -152,33 +155,26 @@ def test_poly_t_not_confused_with_invalid():
 
 
 def test_u64_digit_roundtrip_and_carry_sum():
-    from tsxcount_tpu.ops.count import (
-        _segmented_sum_rev_u64, digits_to_u64, u64_to_digits,
-    )
+    """Digit triples round-trip 64-bit counts, and the blocked device sum
+    of digit columns (the stores' total) carries exactly past 2^32."""
+    from tsxcount_tpu.ops.count import digit_column_sums, digit_sums_to_int
 
     vals = [0, 1, 2**20 - 1, 2**20, 2**32 - 1, 2**32, 2**40 + 12345,
             2**52 - 7]
-    d = jnp.asarray([int_to_counts(v) for v in vals], jnp.int32)
-    lo, hi = digits_to_u64(d)
-    back = u64_to_digits(lo, hi)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(d))
-    got = [counts_to_int(*row) for row in np.asarray(back)]
-    assert got == vals
-
-    # carry across 2^32 inside a segment: two rows of (2^31 + 5) must sum
-    # to 2^32 + 10 at the segment head
-    lo2 = jnp.asarray([2**31 + 5, 2**31 + 5, 7, 0], jnp.uint32)
-    hi2 = jnp.asarray([0, 0, 1, 0], jnp.int32)
-    flag = jnp.asarray([True, False, True, True])
-    slo, shi = _segmented_sum_rev_u64(lo2, hi2, flag, 2)
-    assert int(slo[0]) == (2**32 + 10) % 2**32
-    assert int(shi[0]) == 1
-    assert int(slo[2]) == 7 and int(shi[2]) == 1
+    d = np.asarray([int_to_counts(v) for v in vals], np.int32)
+    assert [counts_to_int(*row) for row in d] == vals
+    # 5000 rows of digits near 2^20: every block sum is near 2^31, and
+    # the total crosses 2^32 several times
+    rng = np.random.default_rng(5)
+    many = rng.integers(2**20 - 64, 2**20, size=(5000, 3)).astype(np.int32)
+    sums = jax.jit(digit_column_sums)([jnp.asarray(many[:, j])
+                                       for j in range(3)])
+    want = sum(counts_to_int(*row) for row in many.tolist())
+    assert digit_sums_to_int(sums) == want
 
 
-def test_absorb_pallas_interpret_counts_cross_2_32():
-    """Store-to-store absorb (LSM cascade) summing counts past 2^32,
-    via the Pallas path in interpret mode."""
+def test_absorb_counts_cross_2_32():
+    """Store-to-store absorb (LSM cascade) summing counts past 2^32."""
     spec = KmerSpec(14)
     store = CountStore(spec, capacity=1024)
     big = 2**33 + 17
@@ -197,24 +193,11 @@ def test_absorb_pallas_interpret_counts_cross_2_32():
             n=jnp.asarray(1, jnp.int32),
         )
 
-    a = state_with(big)
-    b = state_with(2**31 + 3)
-    # drive the pallas path directly (backend detection would pick XLA here)
-    n_keys = 1
-    from tsxcount_tpu.ops.count import digits_to_u64, pack_flag_key
-
-    lo, hi = digits_to_u64(jnp.where(b.used[:, None], b.digits, 0))
-    ops = pack_flag_key(b.keys, ~b.used, spec)
-    consts = store._inv_consts(n_keys)
-    ops = [jnp.where(b.used, op, c) for op, c in zip(ops, consts)]
-    st = a._replace(overflowed=a.overflowed | b.overflowed)
-    out = store._reduce_runs_pallas(
-        st, [tuple(ops) + (lo, hi)], n_keys, run_has_hi=True, fanin=2,
-        interpret=True,
-    )
+    out = jax.jit(store.absorb)(state_with(big), state_with(2**31 + 3))
     keys_h, counts_h, n = store.to_host(out)
     assert n == 1
     assert int(counts_h[0]) == big + 2**31 + 3
+    assert store.total(out) == big + 2**31 + 3
     for v in [0, 1, 5, 2**20 - 1, 2**20, 2**31 - 1, 2**40 + 123]:
         assert counts_to_int(*int_to_counts(v)) == v
     # renorm propagates carries
@@ -286,140 +269,3 @@ def test_store_lookup():
     digits = np.asarray(digits)
     assert found.tolist() == [True, True, True, False]
     assert [counts_to_int(*d) for d in digits] == [2, 3, 1, 0]
-
-
-def test_merge_stacked_pallas_interpret_matches_xla():
-    """The Pallas merge fast path (interpret mode) must be bit-identical to
-    the XLA merge_stacked path."""
-    import jax.numpy as jnp
-
-    spec = KmerSpec(14)
-    store = CountStore(spec, capacity=2048)
-    rng = np.random.default_rng(42)
-    r, p = 2, 1024
-
-    state = store.init_state()
-    # preload the store with some keys
-    pre = np.sort(rng.choice(2**28, size=600, replace=False)).astype(np.uint32)
-    uc0 = count_unique(
-        jnp.asarray(np.pad(pre[:, None], ((0, p - 600), (0, 0)))),
-        jnp.asarray(np.arange(p) < 600),
-        spec=spec,
-    )
-    state = store.merge(state, uc0.keys, uc0.counts, uc0.valid)
-
-    ukeys = np.zeros((r, p, 1), np.uint32)
-    ucounts = np.zeros((r, p), np.int32)
-    uvalid = np.zeros((r, p), bool)
-    for i in range(r):
-        n = int(rng.integers(100, p))
-        keys = np.sort(rng.choice(2**28, size=n, replace=False))
-        ukeys[i, :n, 0] = keys
-        ucounts[i, :n] = rng.integers(1, 100, size=n)
-        uvalid[i, :n] = True
-
-    xla = store.merge_stacked(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts), jnp.asarray(uvalid)
-    )
-    pal = store._merge_stacked_pallas(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts),
-        jnp.asarray(uvalid), interpret=True, tile=1024,
-    )
-    assert int(pal.n) == int(xla.n)
-    n = int(xla.n)
-    np.testing.assert_array_equal(
-        np.asarray(pal.keys[:n]), np.asarray(xla.keys[:n])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(pal.digits[:n]), np.asarray(xla.digits[:n])
-    )
-    assert bool(pal.overflowed) == bool(xla.overflowed)
-
-
-def test_merge_stacked_pallas_two_lane_matches_xla():
-    """2-lane packed keys (k=31) through the Pallas path == XLA path."""
-    import jax.numpy as jnp
-
-    spec = KmerSpec(31)
-    store = CountStore(spec, capacity=2048)
-    rng = np.random.default_rng(7)
-    r, p = 2, 1024
-    state = store.init_state()
-
-    def rand_keys(n):
-        keys = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint32)
-        keys[:, 1] &= spec.top_lane_mask
-        return np.unique(keys, axis=0)
-
-    ukeys = np.zeros((r, p, 2), np.uint32)
-    ucounts = np.zeros((r, p), np.int32)
-    uvalid = np.zeros((r, p), bool)
-    for i in range(r):
-        keys = rand_keys(700)
-        # sort lexicographically msb-first (lane1 major)
-        order = np.lexsort((keys[:, 0], keys[:, 1]))
-        keys = keys[order]
-        n = len(keys)
-        ukeys[i, :n] = keys
-        ucounts[i, :n] = rng.integers(1, 50, size=n)
-        uvalid[i, :n] = True
-
-    xla = store.merge_stacked(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts), jnp.asarray(uvalid)
-    )
-    pal = store._merge_stacked_pallas(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts),
-        jnp.asarray(uvalid), interpret=True, tile=1024,
-    )
-    n = int(xla.n)
-    assert int(pal.n) == n
-    np.testing.assert_array_equal(
-        np.asarray(pal.keys[:n]), np.asarray(xla.keys[:n])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(pal.digits[:n]), np.asarray(xla.digits[:n])
-    )
-
-
-@pytest.mark.parametrize("k", [16, 63, 127])
-def test_merge_stacked_pallas_wide_keys_matches_xla(k):
-    """Wide multi-lane keys (incl. the separate-flag k=16 case) through the
-    Pallas merge path == XLA path."""
-    import jax.numpy as jnp
-
-    spec = KmerSpec(k)
-    store = CountStore(spec, capacity=2048)
-    rng = np.random.default_rng(k)
-    r, p = 2, 1024
-    state = store.init_state()
-    lanes = spec.lanes
-
-    ukeys = np.zeros((r, p, lanes), np.uint32)
-    ucounts = np.zeros((r, p), np.int32)
-    uvalid = np.zeros((r, p), bool)
-    for i in range(r):
-        keys = rng.integers(0, 2**32, size=(800, lanes), dtype=np.uint32)
-        keys[:, -1] &= spec.top_lane_mask
-        keys = np.unique(keys, axis=0)
-        order = np.lexsort(tuple(keys[:, j] for j in range(lanes)))
-        keys = keys[order]
-        n = len(keys)
-        ukeys[i, :n] = keys
-        ucounts[i, :n] = rng.integers(1, 50, size=n)
-        uvalid[i, :n] = True
-
-    xla = store.merge_stacked(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts), jnp.asarray(uvalid)
-    )
-    pal = store._merge_stacked_pallas(
-        state, jnp.asarray(ukeys), jnp.asarray(ucounts),
-        jnp.asarray(uvalid), interpret=True, tile=1024,
-    )
-    n = int(xla.n)
-    assert int(pal.n) == n
-    np.testing.assert_array_equal(
-        np.asarray(pal.keys[:n]), np.asarray(xla.keys[:n])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(pal.digits[:n]), np.asarray(xla.digits[:n])
-    )

@@ -1,9 +1,10 @@
 """End-to-end KmerCounter tests, including the golden-file parity check.
 
 The golden check is THE correctness baseline of the reference project
-(reference .travis.yml:14, .circleci/config.yml:26-28): k=14 counts of
-data/small_t7.1000.fastq must match data/small_t7.1000.fastq.14.count on all
-194 697 entries.
+(reference .travis.yml:14, .circleci/config.yml:26-28): k=14 counts of a
+1000-read file must match its .14.count file on every entry.  The repo
+carries its own seeded fixture (tests/data, see conftest.py), counted by
+tools/make_golden.py.
 """
 
 import collections
@@ -98,8 +99,8 @@ def test_counter_mode_aliases():
 @pytest.mark.fast
 @pytest.mark.parametrize("backend", ["sort", "table"])
 def test_golden_small_t7_k14(backend, small_t7_fastq, small_t7_golden):
-    """Bit-exact k=14 parity vs the shipped reference golden file."""
-    # sort: capacity just above the 194697 distinct kmers; table: reprobing
+    """Bit-exact k=14 parity vs the checked-in golden file."""
+    # sort: capacity just above the 194954 distinct kmers; table: reprobing
     # needs headroom (the reference default l=26 runs at 0.3% fill)
     l = 18 if backend == "sort" else 20
     counter = KmerCounter(
@@ -107,10 +108,10 @@ def test_golden_small_t7_k14(backend, small_t7_fastq, small_t7_golden):
     )
     counter.count_file(small_t7_fastq)
     golden = read_golden(small_t7_golden)
-    assert counter.distinct == len(golden) == 194697
+    assert counter.distinct == len(golden) == 194954
     res = counter.check(small_t7_golden)
     assert res.ok, (res.mismatches[:5], res.missing[:5], res.extra_distinct)
-    assert res.n_matched == 194697
+    assert res.n_matched == 194954
 
 
 def test_golden_dump_roundtrip(small_t7_fastq, small_t7_golden, tmp_path):

@@ -2,11 +2,10 @@
 collision detection, and the extended-key counter path.
 
 The mixing hash replaces the GF(2) matmul as a uniform sort prefix
-(SURVEY §7 hard-part #1, r4 second attack).  Measured a net loss on the
-v5e (column movement dominates lax.sort — see core/counter.py
-_MIX_AUTO_MIN_LANES), so it ships opt-in; these tests pin its EXACTNESS
-and the collision-taint machinery that also protects the hash-first and
-sharded uniform-prefix paths.
+(SURVEY §7 hard-part #1, second attack).  It adds sort columns, so it
+ships opt-in (core/counter.py _MIX_AUTO_MIN_LANES); these tests pin its
+EXACTNESS and the collision-taint machinery that also protects the
+hash-first and sharded uniform-prefix paths.
 """
 
 import jax.numpy as jnp

@@ -225,3 +225,26 @@ def test_native_malformed_fastq(tmp_path):
     batch = BatchSpec(KmerSpec(4), capacity_words=8)
     with pytest.raises(ValueError, match="parse error"):
         list(NativeFileReader(path, batch))
+
+
+def test_native_builds_from_source(tmp_path, monkeypatch):
+    """The library is built from fastxpack.cpp into a path keyed by the
+    source and the compiler command; another source or other flags get
+    another build."""
+    import ctypes
+
+    from tsxcount_tpu.io import native
+
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "build")
+    path = native.lib_path()
+    assert path.parent == tmp_path / "build" and not path.exists()
+    assert native._build(path), native._build_error
+    assert ctypes.CDLL(str(path)).fxp_open_range
+    assert not list(path.parent.glob("*.tmp"))
+
+    src = tmp_path / "fastxpack.cpp"
+    src.write_text(native._SRC.read_text() + "\n// edited\n")
+    monkeypatch.setattr(native, "_SRC", src)
+    edited = native.lib_path()
+    monkeypatch.setattr(native, "_FLAGS", native._FLAGS + ["-DTSX_TEST"])
+    assert len({path, edited, native.lib_path()}) == 3

@@ -79,7 +79,7 @@ def test_sharded_agrees_with_single_device():
 
 @pytest.mark.fast
 def test_sharded_golden_small_t7(small_t7_fastq, small_t7_golden):
-    """Multi-device bit-exact parity on the reference golden file."""
+    """Multi-device bit-exact parity on the checked-in golden file."""
     counter = ShardedKmerCounter(
         k=14, n_shards=8, l=21, batch_words=1 << 12
     )

@@ -216,18 +216,18 @@ def _slice_carry(carry, w):
     return p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w]
 
 
-def _split_insert(table, st, k, c, v, mode):
-    import jax
-
+def _split_insert(table, st, k, c, v):
+    """The single-device counter's insert flow: full-width split rounds
+    at shrinking widths, then the residue loop."""
     st, carry, _, n_left = table.split_round(
-        st, 0, *table.round0_args(k, c, v), mode=mode
+        st, 0, *table.round0_args(k, c, v)
     )
     f = int(jax.device_get(n_left))
     if f == 0:
         return st._replace(slots=table._renorm_flat(st.slots))
     w1 = min(k.shape[0], max(256, 1 << (f - 1).bit_length()))
     st, carry, _, n_left = table.split_round(
-        st, 1, *_slice_carry(carry, w1), mode=mode
+        st, 1, *_slice_carry(carry, w1)
     )
     f = int(jax.device_get(n_left))
     if f == 0:
@@ -236,47 +236,30 @@ def _split_insert(table, st, k, c, v, mode):
     return table.residue_phase(st, _slice_carry(carry, w2), 2, w2)
 
 
-def test_sorted_split_flow_matches_legacy():
-    # the r5 split flow (sorted_round + apply_round kernel/scatter +
-    # residue_phase) against the legacy single-program rounds: same
-    # counts, same n, same spill
-    import jax.numpy as jnp
-    import numpy as np
+def _table_dict(table, st):
+    kk, cc, _ = table.to_host(st)
+    return {tuple(int(x) for x in k): int(c) for k, c in zip(kk, cc)}
 
-    from tsxcount_tpu.config import KmerSpec
-    from tsxcount_tpu.ops.gf2 import GF2Hash
 
+def test_split_flow_matches_insert():
+    # the split flow (split rounds + residue) against the one-program
+    # insert: same counts, same n, no spill
     spec = KmerSpec(14)
     rng = np.random.default_rng(3)
     table = QuotientTable(spec, 10, GF2Hash(spec))
-    assert table.sorted_rounds
     n, n_u = 2048, 700
     ukeys, ucounts, uvalid = _rand_batch(rng, n, n_u, spec)
     args = (jnp.asarray(ukeys), jnp.asarray(ucounts), jnp.asarray(uvalid))
-    st_k = _split_insert(table, table.init_state(), *args, mode="kernel")
-    st_s = _split_insert(table, table.init_state(), *args, mode="element")
+    st_s = _split_insert(table, table.init_state(), *args)
     st_l = table.insert(table.init_state(), *args)
-    for st in (st_k, st_s):
-        assert int(st.n) == n_u == int(st_l.n)
-        assert int(st.spilled) == 0
-        qk, qc, qn = table.to_host(st)
-        lk, lc, ln = table.to_host(st_l)
-        assert qn == ln
-        order_q = np.lexsort(qk.T)
-        order_l = np.lexsort(lk.T)
-        np.testing.assert_array_equal(qk[order_q], lk[order_l])
-        assert list(qc[order_q]) == list(lc[order_l])
+    assert int(st_s.n) == n_u == int(st_l.n)
+    assert int(st_s.spilled) == 0
+    assert _table_dict(table, st_s) == _table_dict(table, st_l)
 
 
-def test_sorted_split_flow_multi_batch_exact():
+def test_split_flow_multi_batch_exact():
     # multi-batch ingest through the split flow: counts add exactly and
     # matches hit keys claimed in earlier batches at any reprobe depth
-    import jax.numpy as jnp
-    import numpy as np
-
-    from tsxcount_tpu.config import KmerSpec
-    from tsxcount_tpu.ops.gf2 import GF2Hash
-
     spec = KmerSpec(14)
     rng = np.random.default_rng(17)
     table = QuotientTable(spec, 16, GF2Hash(spec))
@@ -291,13 +274,77 @@ def test_sorted_split_flow_multi_batch_exact():
         ucounts = rng.integers(1, 5, size=n).astype(np.int32)
         uvalid = np.arange(n) < n_u
         for k_, c_ in zip(uniq, ucounts[:n_u]):
-            truth[int(k_)] = truth.get(int(k_), 0) + int(c_)
+            truth[(int(k_),)] = truth.get((int(k_),), 0) + int(c_)
         st = _split_insert(
             table, st, jnp.asarray(ukeys), jnp.asarray(ucounts),
-            jnp.asarray(uvalid), mode="kernel",
+            jnp.asarray(uvalid),
         )
     assert int(st.n) == len(truth)
     assert int(st.spilled) == 0
-    kk, cc, _ = table.to_host(st)
-    got = {int(k[0]): int(c) for k, c in zip(kk, cc)}
-    assert got == truth
+    assert table.total(st) == sum(truth.values())
+    assert _table_dict(table, st) == truth
+
+
+def _round_case(name):
+    """(table, ukeys, ucounts, uvalid) for one element-round case."""
+    spec = KmerSpec(14)
+    if name.startswith("random"):
+        seed = int(name[-1])
+        rng = np.random.default_rng(seed)
+        table = QuotientTable(spec, 12, GF2Hash(spec, seed=seed + 1))
+        return (table,) + _rand_batch(rng, 2048, 1500, spec)
+    rng = np.random.default_rng(42)
+    if name == "dense":
+        # every slot of a 2^11 table claimed: long reprobe chains
+        table = QuotientTable(spec, 11, GF2Hash(spec), max_reprobes=2047)
+        return (table,) + _rand_batch(rng, 2048, 2048, spec)
+    if name == "sparse":
+        table = QuotientTable(spec, 12, GF2Hash(spec))
+        return (table,) + _rand_batch(rng, 2048, 1, spec)
+    if name == "none_active":
+        table = QuotientTable(spec, 11, GF2Hash(spec))
+        return (table,) + _rand_batch(rng, 512, 0, spec)
+    ident = QuotientTable(spec, 12, GF2Hash(spec, identity=True),
+                          max_reprobes=64)
+    if name == "edge_slots":
+        # identity hash: slots at the ends of the table and neighbours
+        slots = np.array([0, 1, 1023, 1024, 1025, 2047, 2048, 4095])
+        keys = (np.arange(1, 9, dtype=np.uint32) << 12) | slots
+    elif name == "one_slot":
+        # 40 keys probing from one slot: a 40-deep triangular chain
+        keys = (np.arange(1, 41, dtype=np.uint32) << 12) | 7
+    elif name == "alternating":
+        # every other slot, each claimed twice: half the rows reprobe
+        slots = np.arange(0, 4096, 2)
+        keys = np.concatenate([
+            (np.uint32(1) << 12) | slots, (np.uint32(2) << 12) | slots,
+        ]).astype(np.uint32)
+    else:  # "wrap": probes that wrap past the last slot
+        keys = (np.arange(1, 30, dtype=np.uint32) << 12) | 4090
+    n = 4096 if len(keys) > 2048 else 2048
+    ukeys = np.zeros((n, 1), np.uint32)
+    ukeys[: len(keys), 0] = keys
+    ucounts = rng.integers(1, 9, size=n).astype(np.int32)
+    return ident, ukeys, ucounts, np.arange(n) < len(keys)
+
+
+@pytest.mark.parametrize("name", [
+    "random0", "random1", "random2", "random3", "dense", "sparse",
+    "none_active", "edge_slots", "one_slot", "alternating", "wrap",
+])
+def test_element_rounds_match_dict(name):
+    table, ukeys, ucounts, uvalid = _round_case(name)
+    st = _split_insert(
+        table, table.init_state(), jnp.asarray(ukeys), jnp.asarray(ucounts),
+        jnp.asarray(uvalid),
+    )
+    truth = {
+        tuple(int(x) for x in k): int(c)
+        for k, c, v in zip(ukeys, ucounts, uvalid) if v
+    }
+    assert int(st.spilled) == 0
+    assert int(st.n) == len(truth)
+    assert table.total(st) == sum(truth.values())
+    assert _table_dict(table, st) == truth
+    hist = np.asarray(st.probe_hist)
+    assert int(hist.sum()) == len(truth)

@@ -91,7 +91,7 @@ def main() -> int:
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--k", type=int, default=9,
                     help="kmer length (>= 31 exercises the multi-lane "
-                         "sort/merge programs over DCN — VERDICT r3 #4)")
+                         "sort/merge programs across processes)")
     args = ap.parse_args()
 
     import collections

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Amortized phase breakdown of the SHARDED counter at --shards 1 vs the
-single-chip pipeline (chasing the r3 gap: 0.430 s/pass sharded vs 0.295 s
-single-chip on the same data, k=14 hp-off, 2 batches/pass).
+plain single-device pipeline on the same data (k=14 hp-off, 2
+batches/pass).
 
 Times, amortized like tools/stepbench.py (async back-to-back dispatches,
 one fence, null dispatch baseline subtracted):
@@ -37,11 +37,9 @@ def main() -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from tsxcount_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""QuotientTable insert decomposition — where do 12 s/batch go? (VERDICT
-r3 #7: table backend at 781k kmers/s = 1.2% of the sort backend.)
+"""QuotientTable insert decomposition — where does a table batch's time
+go?
 
 Times, amortized (async dispatches, one fence, null baseline subtracted):
   * full insert of one realistic deduped batch (the production shape);
@@ -39,11 +39,9 @@ def main() -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from tsxcount_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -89,10 +87,7 @@ def main() -> int:
     from tests.test_table import _split_insert
 
     st = table.init_state()
-    out = _split_insert(
-        table, st, ukeys_d, ucounts_d, uvalid_d,
-        table.apply_mode_auto(n),
-    )
+    out = _split_insert(table, st, ukeys_d, ucounts_d, uvalid_d)
     fence(out.n)
     hist = np.asarray(jax.device_get(out.probe_hist))
     rounds = int(np.nonzero(hist)[0].max()) + 1 if hist.any() else 0
@@ -114,13 +109,10 @@ def main() -> int:
         timed("insert (empty table)",
               lambda: insert(st, ukeys_d, ucounts_d, uvalid_d))
 
-    # the r5 production path: host-driven split rounds at shrinking
-    # widths + element-mode tail, the way the counter drives it
+    # the production path: host-driven split rounds at shrinking widths
+    # + the residue loop, the way the counter drives it
     def split_insert():
-        return _split_insert(
-            table, st, ukeys_d, ucounts_d, uvalid_d,
-            table.apply_mode_auto(n),
-        ).n
+        return _split_insert(table, st, ukeys_d, ucounts_d, uvalid_d).n
 
     timed("insert split-phase", split_insert)
 

@@ -1,17 +1,18 @@
-"""tsxcount_tpu — a TPU-native exact k-mer counting framework.
+"""tsxcount_tpu — an exact k-mer counting framework for accelerators.
 
 A from-scratch re-design of the capabilities of mjoppich/tsxCount (a C++14
 shared-memory k-mer counter built around a jellyfish-style bit-packed hash
-table with TSX/CAS/OMP/pthread serialization variants) for TPU hardware using
-JAX/XLA/Pallas.
+table with TSX/CAS/OMP/pthread serialization variants) in JAX/XLA, run on
+an NVIDIA GPU.
 
 Design stance (see SURVEY.md §7): the reference spends most of its code making
 concurrent read-modify-write of bit-packed slots safe
-(reference src/tsxcount/TSXHashMap*.h).  On TPU we eliminate that entire
-serialization layer: k-mer occurrences are counted with owner-computed,
-conflict-free primitives — on-chip lexicographic sort + segmented sum, or a
-deterministic multi-round claim/scatter quotient table — and scaled across
-chips by hash-prefix all-to-all routing over a `jax.sharding.Mesh`.
+(reference src/tsxcount/TSXHashMap*.h).  Here that entire
+serialization layer is gone: k-mer occurrences are counted with
+owner-computed, conflict-free primitives — on-device lexicographic sort +
+segmented sum, or a deterministic multi-round claim/scatter quotient table —
+and scaled across devices by hash-prefix all-to-all routing over a
+`jax.sharding.Mesh`.
 
 Public surface:
     KmerSpec                  — k-mer geometry (lanes, masks)

@@ -1,6 +1,6 @@
 // fastxpack — native FASTQ/FASTA(.gz) streaming parser + 2-bit batch packer.
 //
-// The TPU-native counterpart of the reference's FASTXreader + SequenceUtils
+// The host-side counterpart of the reference's FASTXreader + SequenceUtils
 // host path (reference src/fastxutils/FastXReader.h:118-478 chunked zlib
 // reader; src/utils/SequenceUtils.h:86-160 2-bit encoder): instead of
 // materializing per-kmer strings, it emits fixed-shape device batches —
@@ -24,7 +24,8 @@
 //               reference's nondeterministic behavior, SequenceUtils.h:126-137,
 //               made deterministic with an explicit seed).
 //
-// Build: g++ -O3 -march=native -shared -fPIC fastxpack.cpp -o libfastxpack.so -lz
+// Built at first use by tsxcount_tpu/io/native.py (g++ -O3 -march=native
+// -std=c++17 -shared -fPIC ... -lz) into _native/build/.
 
 #include <cstdint>
 #include <cstdio>

@@ -1,7 +1,7 @@
 """K-mer geometry and batch-shape configuration.
 
 The reference stores a k-mer as a 2k-bit UBigInt over uint8 fields
-(reference src/tsxutils/UBigInt.h:188-217).  On TPU the natural unit is a
+(reference src/tsxutils/UBigInt.h:188-217).  The natural unit here is a
 32-bit lane: a k-mer is `lanes = ceil(2k/32)` stacked uint32 values,
 little-endian (lane 0 holds bases 0..15).  Base i occupies bits [2i, 2i+1]
 of the flattened bit string with A=00, C=01, G=10, T=11 — identical bit
@@ -16,7 +16,7 @@ BASES_PER_WORD = 16          # 16 bases x 2 bits = one uint32 word
 WORD_BITS = 32
 
 # Counts are stored as 3 little-endian base-2^20 digits in int32 lanes
-# (60 usable bits).  This is the TPU analog of the reference's multi-digit
+# (60 usable bits).  This is the analog of the reference's multi-digit
 # count assembly — primary s-bit value plus overflow-entry digits OR-ed
 # together (reference src/tsxcount/TSXHashMap.h:548-638) — but with wide
 # fixed-width digits so segment-sums never overflow int32.

@@ -14,60 +14,11 @@ segmented sums can never overflow an int32 lane.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-# perf experiment knob: override the Pallas merge kernel tile (elements)
-_MERGE_TILE = int(os.environ.get("TSX_MERGE_TILE", "0")) or None
-# fused merge+dedupe+compact kernel for the final store merge (one pass
-# instead of merge -> flags/segsum -> compaction).  TSX_FUSED_MERGE=0/1
-# forces; unset = auto by key width — r3 A/B on one v5e (20k-read bench,
-# l=25): fused wins at n_keys <= 4 (k=14: 0.291 vs 0.330 s/pass, k=31:
-# 0.341 vs 0.346, k=63: 0.397 vs 0.408) but LOSES at n_keys = 8 (k=127:
-# 0.845 vs 0.620).  r5 isolated the loss at the kernel level
-# (tools/fusedwide.py, VERDICT r4 #7): it is SIZE-dependent, not a flat
-# column-count wall — at 12.6M merged rows fused@tile=16384 WINS
-# (36.6 vs 38.4 ms), but at the production 36M-row store merge it
-# collapses (259.5 ms; tile=8192 recovers to 125.9 but still trails the
-# 117.4 ms 3-pass).  The 11-column working set at 36M rows pushes the
-# kernel past a VMEM/HBM pressure knee the 3-pass formulation never
-# hits, so auto-off at n_keys > 4 stands as the measured optimum for
-# production shapes; see bench_results/report_r5.md.
-def _parse_fused_env() -> bool | None:
-    """TSX_FUSED_MERGE: '0'/'1' force, 'auto'/unset = auto-by-width.
-    Anything else is rejected loudly — silently mapping e.g. 'true' to
-    auto would change behavior for scripts that meant 'force on'."""
-    raw = os.environ.get("TSX_FUSED_MERGE", "auto")
-    table = {"0": False, "1": True, "auto": None, "": None}
-    if raw not in table:
-        raise ValueError(
-            f"TSX_FUSED_MERGE={raw!r} not understood: use 0, 1, or auto"
-        )
-    return table[raw]
-
-
-_FUSED_MERGE = _parse_fused_env()
-_FUSED_MAX_KEYS = 4
-# wide keys (n_keys > 4): the loss is SIZE-dependent (r5, tools/
-# fusedwide.py) — fused WINS at 12.6M merged rows (36.6 vs 38.4 ms)
-# and collapses at the 36M-row single-chip store merge.  Engage fused
-# up to the measured win point; the knee between 12.6M and 36M is
-# unmeasured, so stay conservative.  This puts the multi-chip sharded
-# path (per-shard merges of cap/n_shards + flush/n_shards rows) on the
-# fused kernel at every practical shard count.
-_FUSED_WIN_ROWS = 12_582_912  # == the measured cap 2^23 + p 2^22 win
-
-
-def _fused_default(n_keys: int, total_rows: int | None = None) -> bool:
-    if _FUSED_MERGE is not None:
-        return _FUSED_MERGE
-    if n_keys <= _FUSED_MAX_KEYS:
-        return True
-    return total_rows is not None and total_rows <= _FUSED_WIN_ROWS
 
 from tsxcount_tpu.config import COUNT_DIGITS, KmerSpec, counts_to_int
 from tsxcount_tpu.ops.count import (
@@ -75,6 +26,8 @@ from tsxcount_tpu.ops.count import (
     _invalid_bits,
     _segmented_sum_rev,
     compact_rows,
+    digit_column_sums,
+    digit_sums_to_int,
     int32_to_digits,
     pack_flag_key,
     renorm_digits,
@@ -115,286 +68,51 @@ class CountStore:
             state, ukeys[None], ucounts[None], uvalid[None]
         )
 
-    def _pallas_mergeable(self, r: int, p: int) -> bool:
-        """The Pallas merge fast path applies for any k whose packed msb
-        column stays below 2^31 (top_lane_bits <= 30, i.e. k % 16 != 0 —
-        otherwise pack_flag_key emits a separate 0/1 flag column, which
-        also qualifies) when sizes tile evenly, on a real TPU."""
-        from tsxcount_tpu.ops.pallas_merge import DEFAULT_TILE
-
-        return (
-            self.capacity % DEFAULT_TILE == 0
-            and p % DEFAULT_TILE == 0
-            and jax.default_backend() == "tpu"
-        )
-
     def merge_stacked(self, state: StoreState, ukeys: jax.Array,
                       ucounts: jax.Array, uvalid: jax.Array) -> StoreState:
         """Merge R deduped batch histograms into the store in ONE sort.
 
-        ukeys [R, P, lanes], ucounts [R, P], uvalid [R, P].  Scatter-free
-        sorted-merge: concat, one lexicographic sort with a row-index
-        payload; every key run has at most R+1 rows (each input is deduped),
-        so per-key digit totals come from a log2(R+1)-step segmented sum,
-        and boundary rows are compacted to the front with the position-sort
-        trick.  Deferring merges this way amortizes the O(capacity) re-sort
-        over R batches — the streaming cost is O(P log R + capacity/R) per
-        batch instead of O(capacity).
-
-        On TPU, the big lax.sort is replaced by the Pallas
-        merge-path kernel (all inputs are pre-sorted runs; measured 4.7x
-        faster than re-sorting, tools/microbench.py / ops/pallas_merge.py).
-        """
-        cap = self.capacity
-        r, p, lanes = ukeys.shape
-        if self._pallas_mergeable(r, p):
-            return self._merge_stacked_pallas(state, ukeys, ucounts, uvalid)
-        total = cap + r * p
-        inv = jnp.concatenate([~state.used, ~uvalid.reshape(-1)])
-        keys = jnp.concatenate([state.keys, ukeys.reshape(-1, lanes)], axis=0)
-        digits = jnp.concatenate(
-            [state.digits,
-             int32_to_digits(ucounts.reshape(-1).astype(jnp.int32))], axis=0
-        )
-        ops = pack_flag_key(keys, inv, self.spec)
-        # digits ride as sort payloads: a random 3-lane gather post-sort is
-        # ~3x slower than widening the sort on TPU (tools/microbench.py)
-        *sorted_all, = jax.lax.sort(
-            ops + (digits[:, 0], digits[:, 1], digits[:, 2]),
-            num_keys=len(ops),
-        )
-        ops_s = list(sorted_all[: len(ops)])
-        d = jnp.stack(sorted_all[len(ops) :], axis=1)
-        flag = _boundary_flags(ops_s)
-        # run totals anchored at first rows; one payload-carrying compaction
-        # sort replaces boundary-position sort + per-column gathers
-        dsum = _segmented_sum_rev(d, flag, r + 1)
-        _, rep = compact_rows(
-            flag, ops_s + [dsum[:, 0], dsum[:, 1], dsum[:, 2]]
-        )
-        new_keys, _ = unpack_flag_key(
-            [col[:cap] for col in rep[: len(ops)]], self.spec
-        )
-        new_digits = jnp.stack(
-            [col[:cap] for col in rep[len(ops) :]], axis=1
-        )
-        inv_rows = _invalid_bits(ops_s[0], ops_s, self.spec)
-        n_new = jnp.sum(flag & ~inv_rows, dtype=jnp.int32)
-        overflow = state.overflowed | (n_new > cap)
-        n_kept = jnp.minimum(n_new, cap)
-        return StoreState(
-            keys=new_keys,
-            digits=renorm_digits(new_digits),
-            used=jnp.arange(cap, dtype=jnp.int32) < n_kept,
-            n=n_kept,
-            overflowed=overflow,
-        )
-
-    def _inv_consts(self, n_keys: int) -> list:
-        """Per-key-column constants an invalid/unused row is re-masked to:
-        msb op carries the flag (in-lane bit, or a standalone 0/1 column
-        when top_lane_bits == 32), lower ops zero."""
-        spec = self.spec
-        msb_const = (
-            jnp.uint32(1 << spec.top_lane_bits)
-            if spec.top_lane_bits < 32 else jnp.uint32(1)
-        )
-        return [msb_const] + [jnp.uint32(0)] * (n_keys - 1)
-
-    def _merge_stacked_pallas(self, state: StoreState, ukeys: jax.Array,
-                              ucounts: jax.Array, uvalid: jax.Array,
-                              interpret: bool = False,
-                              tile: int | None = None,
-                              fused: bool | None = None) -> StoreState:
-        """merge_stacked via the Pallas merge-path kernel (any k).
-
-        All inputs are already sorted runs: the store's used prefix and each
-        batch histogram's valid prefix.  Invalid/unused rows are re-masked
-        to the constant (flag<<top | 0) so every run is globally ascending,
-        then merged pairwise; flags + first-row-anchored segment sums +
-        one compaction sort finish exactly like the XLA path.
+        ukeys [R, P, lanes], ucounts [R, P], uvalid [R, P].  Sorted merge:
+        concat, one lexicographic sort with the count digits as payload;
+        every key run has at most R+1 rows (each input is deduped), so
+        per-key digit totals come from a log2(R+1)-step segmented sum, and
+        run heads are compacted to the front.  Deferring merges this way
+        amortizes the O(capacity) re-sort over R batches — the streaming
+        cost is O(P log R + capacity/R) per batch instead of O(capacity).
         """
         r, p, lanes = ukeys.shape
-        spec = self.spec
-        store_ops = pack_flag_key(state.keys, ~state.used, spec)
-        n_keys = len(store_ops)  # packed key columns, msb-first
-        inv_consts = self._inv_consts(n_keys)
-        runs = []
-        for i in range(r):
-            ops = pack_flag_key(ukeys[i], ~uvalid[i], spec)
-            ops = [
-                jnp.where(uvalid[i], op, const)
-                for op, const in zip(ops, inv_consts)
-            ]
-            # counts ride the batch merge tree as ONE uint32 column and are
-            # widened to (lo, hi) only for the final store merge
-            cnt = jnp.where(
-                uvalid[i], ucounts[i].astype(jnp.uint32), jnp.uint32(0)
-            )
-            runs.append(tuple(ops) + (cnt,))
-        return self._reduce_runs_pallas(
-            state, runs, n_keys, run_has_hi=False, fanin=r + 1,
-            interpret=interpret, tile=tile, fused=fused,
+        return self._fold(
+            state,
+            keys=ukeys.reshape(-1, lanes),
+            digits=int32_to_digits(ucounts.reshape(-1).astype(jnp.int32)),
+            unused=~uvalid.reshape(-1),
+            fanin=r + 1,
+            overflowed=state.overflowed,
         )
 
-    def _reduce_runs_pallas(self, state: StoreState, runs: list,
-                            n_keys: int, run_has_hi: bool,
-                            fanin: int, interpret: bool = False,
-                            tile: int | None = None,
-                            fused: bool | None = None) -> StoreState:
-        """Merge pre-masked sorted runs into the store, dedupe, rebuild.
-
-        Each run = key ops + count columns: (lo,) when run_has_hi is False
-        (batch histograms, counts < 2^32) or (lo, hi) for 64-bit counts
-        (store-to-store absorbs).  The store's digit triples convert to
-        (lo, hi) words for the merge and back after — two fewer payload
-        columns through the merge/compaction kernels than digit triples.
-        """
-        from tsxcount_tpu.ops.count import (
-            _segmented_sum_rev_u64,
-            digits_to_u64,
-            u64_to_digits,
-        )
-        from tsxcount_tpu.ops.pallas_merge import DEFAULT_TILE, merge_sorted
-
-        tile = tile or _MERGE_TILE or DEFAULT_TILE
-        cap = self.capacity
-        spec = self.spec
-        # balanced merge tree: R runs cost O(R log R) rows instead of the
-        # O(R^2) of sequential accumulation (matters for the sharded path,
-        # which folds merge_every * n_shards runs per flush)
-        while len(runs) > 1:
-            nxt_level = [
-                merge_sorted(runs[i], runs[i + 1], tile=tile,
-                             interpret=interpret, n_keys=n_keys)
-                for i in range(0, len(runs) - 1, 2)
-            ]
-            if len(runs) % 2:
-                nxt_level.append(runs[-1])
-            runs = nxt_level
-        acc = runs[0]
-        if not run_has_hi:
-            acc = acc + (jnp.zeros_like(acc[n_keys], jnp.int32),)
-        lo0, hi0 = digits_to_u64(state.digits)
-        # zero unused rows' KEYS as well as counts: tails from other merge
-        # paths (XLA, 3-pass, checkpoints) may hold junk, and the fused
-        # kernel requires the invalid region to be one sorted constant
-        clean_keys = jnp.where(
-            state.used[:, None], state.keys, jnp.uint32(0)
-        )
-        store_run = tuple(pack_flag_key(clean_keys, ~state.used, spec)) + (
-            jnp.where(state.used, lo0, jnp.uint32(0)),
-            jnp.where(state.used, hi0, 0),
-        )
-        total_rows = cap + acc[0].shape[0]
-        if _fused_default(n_keys, total_rows) if fused is None else fused:
-            from tsxcount_tpu.ops.pallas_merge_dedupe import (
-                merge_dedupe_sorted,
-            )
-
-            inv_min = (
-                (1 << spec.top_lane_bits)
-                if spec.top_lane_bits < 32 else 1
-            )
-            cols, _, n_valid = merge_dedupe_sorted(
-                store_run, acc, n_keys=n_keys, inv_min=inv_min,
-                tile=tile, interpret=interpret,
-            )
-            new_keys, _ = unpack_flag_key(
-                [c[:cap] for c in cols[:n_keys]], spec
-            )
-            new_digits = u64_to_digits(
-                cols[n_keys][:cap], cols[n_keys + 1][:cap]
-            )
-            overflow = state.overflowed | (n_valid > cap)
-            n_kept = jnp.minimum(n_valid, cap)
-            used = jnp.arange(cap, dtype=jnp.int32) < n_kept
-            # ZERO the tail: rows beyond the output frontier hold compaction
-            # junk (real key values).  Left in place they repack as MANY
-            # distinct unsorted "invalid" rows on the next merge, violating
-            # the kernel's ascending-run precondition (the merge-path
-            # partition) and its one-invalid-run stats assumption — the
-            # n_keys>=2 hardware corruption chased in round 2.  Zeroed, the
-            # invalid region is one shared constant again.
-            new_keys = jnp.where(used[:, None], new_keys, jnp.uint32(0))
-            new_digits = jnp.where(used[:, None], new_digits, 0)
-            return StoreState(
-                keys=new_keys,
-                digits=renorm_digits(new_digits),
-                used=used,
-                n=n_kept,
-                overflowed=overflow,
-            )
-        merged = merge_sorted(store_run, acc, tile=tile,
-                              interpret=interpret, n_keys=n_keys)
-
-        key_cols = list(merged[:n_keys])
-        neq = key_cols[0][1:] != key_cols[0][:-1]
-        for col in key_cols[1:]:
-            neq = neq | (col[1:] != col[:-1])
-        flag = jnp.concatenate([jnp.ones((1,), jnp.bool_), neq])
-        lo, hi = _segmented_sum_rev_u64(
-            merged[n_keys], merged[n_keys + 1], flag, fanin
-        )
-        # Pallas stream compaction (butterfly routing network)
-        from tsxcount_tpu.ops.pallas_compact import compact_flagged
-
-        rep = list(compact_flagged(
-            flag.astype(jnp.int32),
-            tuple(key_cols) + (lo, hi),
-            interpret=interpret,
-        ))
-        new_keys, _ = unpack_flag_key(
-            [c[:cap] for c in rep[:n_keys]], spec
-        )
-        new_digits = u64_to_digits(rep[n_keys][:cap], rep[n_keys + 1][:cap])
-        inv_rows = _invalid_bits(key_cols[0], key_cols, spec)
-        n_new = jnp.sum(flag & ~inv_rows, dtype=jnp.int32)
-        overflow = state.overflowed | (n_new > cap)
-        n_kept = jnp.minimum(n_new, cap)
-        return StoreState(
-            keys=new_keys,
-            digits=renorm_digits(new_digits),
-            used=jnp.arange(cap, dtype=jnp.int32) < n_kept,
-            n=n_kept,
-            overflowed=overflow,
-        )
-
-    def absorb(self, state: StoreState, other: StoreState,
-               interpret: bool = False) -> StoreState:
+    def absorb(self, state: StoreState, other: StoreState) -> StoreState:
         """Merge another store's contents into this one (store-to-store).
 
         `other` may have a different (typically smaller) capacity but must
         share the KmerSpec.  Digit triples are summed per key — counts of
         keys present in both stores add exactly (the LSM cascade step).
         """
-        cap = self.capacity
-        other_cap = other.keys.shape[0]
-        spec = self.spec
-        if self._pallas_mergeable(1, other_cap):
-            from tsxcount_tpu.ops.count import digits_to_u64
+        return self._fold(
+            state, keys=other.keys, digits=other.digits, unused=~other.used,
+            fanin=2, overflowed=state.overflowed | other.overflowed,
+        )
 
-            n_keys = len(pack_flag_key(state.keys, ~state.used, spec))
-            inv_consts = self._inv_consts(n_keys)
-            ops = pack_flag_key(other.keys, ~other.used, spec)
-            ops = [
-                jnp.where(other.used, op, const)
-                for op, const in zip(ops, inv_consts)
-            ]
-            lo, hi = digits_to_u64(
-                jnp.where(other.used[:, None], other.digits, 0)
-            )
-            run = tuple(ops) + (lo, hi)
-            state = state._replace(
-                overflowed=state.overflowed | other.overflowed
-            )
-            return self._reduce_runs_pallas(
-                state, [run], n_keys, run_has_hi=True, fanin=2,
-                interpret=interpret,
-            )
-        inv = jnp.concatenate([~state.used, ~other.used])
-        keys = jnp.concatenate([state.keys, other.keys], axis=0)
-        digits = jnp.concatenate([state.digits, other.digits], axis=0)
+    def _fold(self, state: StoreState, keys: jax.Array, digits: jax.Array,
+              unused: jax.Array, fanin: int, overflowed: jax.Array
+              ) -> StoreState:
+        """Sort the store's rows together with extra (keys, digits) rows,
+        sum the digits of equal keys (at most `fanin` rows share one) and
+        rebuild the store from the run heads."""
+        cap = self.capacity
+        spec = self.spec
+        inv = jnp.concatenate([~state.used, unused])
+        keys = jnp.concatenate([state.keys, keys], axis=0)
+        digits = jnp.concatenate([state.digits, digits], axis=0)
         ops = pack_flag_key(keys, inv, spec)
         *sorted_all, = jax.lax.sort(
             ops + (digits[:, 0], digits[:, 1], digits[:, 2]),
@@ -403,26 +121,26 @@ class CountStore:
         ops_s = list(sorted_all[: len(ops)])
         d = jnp.stack(sorted_all[len(ops) :], axis=1)
         flag = _boundary_flags(ops_s)
-        dsum = _segmented_sum_rev(d, flag, 2)
+        # run totals anchored at first rows, then the run heads compacted
+        dsum = _segmented_sum_rev(d, flag, fanin)
         _, rep = compact_rows(
             flag, ops_s + [dsum[:, 0], dsum[:, 1], dsum[:, 2]]
         )
         new_keys, _ = unpack_flag_key(
-            [col[:cap] for col in rep[: len(ops)]], self.spec
+            [col[:cap] for col in rep[: len(ops)]], spec
         )
         new_digits = jnp.stack(
             [col[:cap] for col in rep[len(ops) :]], axis=1
         )
-        inv_rows = _invalid_bits(ops_s[0], ops_s, self.spec)
+        inv_rows = _invalid_bits(ops_s[0], ops_s, spec)
         n_new = jnp.sum(flag & ~inv_rows, dtype=jnp.int32)
-        overflow = state.overflowed | other.overflowed | (n_new > cap)
         n_kept = jnp.minimum(n_new, cap)
         return StoreState(
             keys=new_keys,
             digits=renorm_digits(new_digits),
             used=jnp.arange(cap, dtype=jnp.int32) < n_kept,
             n=n_kept,
-            overflowed=overflow,
+            overflowed=overflowed | (n_new > cap),
         )
 
     def lookup(self, state: StoreState, queries: jax.Array
@@ -456,6 +174,13 @@ class CountStore:
         return digits, found
 
     # --- host-side export ---
+
+    def total(self, state: StoreState) -> int:
+        """Sum of every stored count (equals the windows counted)."""
+        d = jnp.where(state.used[:, None], state.digits, 0)
+        return digit_sums_to_int(jax.device_get(
+            digit_column_sums([d[:, j] for j in range(COUNT_DIGITS)])
+        ))
 
     def to_host(self, state: StoreState) -> tuple[np.ndarray, np.ndarray, int]:
         """Fetch (keys [n, lanes], counts [n] python ints, n)."""

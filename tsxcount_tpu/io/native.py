@@ -1,9 +1,12 @@
 """ctypes bindings for the native C++ FASTQ parser/packer.
 
-Builds tsxcount_tpu/_native/libfastxpack.so lazily with g++ (no pybind11 in
-this environment; the C ABI + ctypes keeps the binding dependency-free).
-Falls back cleanly if no compiler is available — callers use
-`native_available()` and the pure-Python packer otherwise.
+Builds the library from tsxcount_tpu/_native/fastxpack.cpp at first use, with
+g++ and zlib, into _native/build/ under a name keyed by a hash of the
+source, the compiler command and the host CPU — an edited source, other
+flags or another machine get their own build, and no file dates are
+consulted.  The C ABI + ctypes keeps the binding dependency-free.  Callers
+use `native_available()` and fall back to the pure-Python packer (the CLI
+warns when it does).
 
 Byte-range chunking: `fxp_open_range` parses only the records owned by a
 byte range of the file (FASTQ 4-line / FASTA resync in C++), so
@@ -16,7 +19,9 @@ falls back to one sequential stream.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -28,7 +33,8 @@ from tsxcount_tpu.io.packer import PackedBatch, PackStats
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "_native"
 _SRC = _NATIVE_DIR / "fastxpack.cpp"
-_LIB = _NATIVE_DIR / "libfastxpack.so"
+_BUILD_DIR = _NATIVE_DIR / "build"
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -37,12 +43,35 @@ _build_error: str | None = None
 N_POLICY_CODES = {"drop": 0, "random": 1}
 
 
-def _build() -> bool:
+def _cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor()
+
+
+def lib_path() -> Path:
+    """Where the build for this source, compiler command and CPU lives
+    (-march=native code must not run on another CPU model)."""
+    key = hashlib.sha256()
+    key.update(_SRC.read_bytes())
+    key.update(" ".join(
+        [os.environ.get("CXX", "g++")] + _FLAGS + [platform.machine(),
+                                                   _cpu_model()]
+    ).encode())
+    return _BUILD_DIR / f"libfastxpack-{key.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> bool:
     global _build_error
-    cmd = [
-        os.environ.get("CXX", "g++"),
-        "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        str(_SRC), "-o", str(_LIB), "-lz",
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++")] + _FLAGS + [
+        str(_SRC), "-o", str(tmp), "-lz",
     ]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -51,7 +80,9 @@ def _build() -> bool:
         return False
     if proc.returncode != 0:
         _build_error = proc.stderr[-2000:]
+        tmp.unlink(missing_ok=True)
         return False
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     return True
 
 
@@ -60,11 +91,11 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                return None
+        path = lib_path()
+        if not path.exists() and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB))
+            lib = ctypes.CDLL(str(path))
         except OSError as e:
             _build_error = str(e)
             return None

@@ -3,7 +3,7 @@
 Replaces the reference's per-kmer string materialization
 (`createKMers` sliding window, reference src/mains/testExecution.h:15-36, and
 `fromSequence` per-kmer bit packing, src/utils/SequenceUtils.h:86-160) with a
-batched layout the TPU can window-extract without gathers:
+batched layout the device can window-extract without gathers:
 
   * bases are 2-bit packed into uint32 words, 16 bases/word, LSB-first;
   * every read starts on a word boundary (fresh uint32);

@@ -2,7 +2,7 @@
 
 The reference overlaps a reader thread with counter tasks (reference
 src/mains/main.cpp:132-218: the omp single thread reads FASTQ while omp
-tasks count).  The TPU analog is a bounded producer queue: background
+tasks count).  The analog here is a bounded producer queue: background
 thread(s) parse + pack + *start the async H2D copy* (jax.device_put
 returns before the transfer completes), while the main thread dispatches
 the jitted device steps.  With a queue depth of D, up to D batch transfers

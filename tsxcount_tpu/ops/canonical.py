@@ -2,12 +2,12 @@
 
 The reference counts strand-specific k-mers only (no canonicalization —
 BASELINE.md golden-file semantics).  Real counters usually fold strands;
-this is the TPU-vectorized version, enabled with --canonical / canonical=True
+this is the vectorized version, enabled with --canonical / canonical=True
 (off by default to preserve reference parity).
 
 2-bit encoding makes both halves cheap: complement = bitwise NOT (A=00 <->
 T=11, C=01 <-> G=10), reverse = 2-bit-group reversal via a mask-shift
-network, both pure VPU ops.
+network, both pure elementwise ops.
 """
 
 from __future__ import annotations

@@ -1,24 +1,23 @@
-"""Sort + segmented-reduction exact counting primitives (scatter-free).
+"""Sort + segmented-reduction exact counting primitives.
 
-This is the TPU replacement for the reference's entire concurrency story:
-instead of serializing concurrent increments on a shared bit-packed table
-(TSX transactions / CAS / locks — reference src/tsxcount/TSXHashMapTSXPerf.h,
+This replaces the reference's entire concurrency story: instead of
+serializing concurrent increments on a shared bit-packed table (TSX
+transactions / CAS / locks — reference src/tsxcount/TSXHashMapTSXPerf.h,
 TSXHashMapCAS.h etc.), occurrences of equal k-mers are brought together by a
 lexicographic sort and reduced with conflict-free vector ops.  Exact,
 deterministic, no contention by construction.
 
-Performance design (TPU):
+Design:
   * the validity flag is packed into the spare high bits of the key itself,
     so a k<=15 batch sorts a SINGLE uint32 operand (k<=31: two), and invalid
     windows sort to the end for free;
-  * no scatters anywhere on the hot path — XLA TPU scatter serializes.
-    Segment compaction uses the position-sort trick: sorting
-    `where(is_boundary, position, P)` yields the boundary positions densely
-    packed at the front, so per-segment counts are adjacent differences and
-    per-segment representatives are plain gathers;
-  * bounded-fanin segment sums (merge: <=2 rows per key; sharded receive:
+  * run boundaries are compacted to the front with an exclusive cumsum and
+    one scatter to unique destinations (compact_rows), so per-segment counts
+    are adjacent differences of boundary positions;
+  * bounded-fanin segment sums (merge: <=R+1 rows per key; sharded receive:
     <=n_shards rows) use log2-step shifted adds instead of a general scan.
 """
+
 
 from __future__ import annotations
 
@@ -111,19 +110,26 @@ def _boundary_flags(ops_sorted: Sequence[jax.Array]) -> jax.Array:
 
 def compact_rows(flag: jax.Array, columns: Sequence[jax.Array]
                  ) -> tuple[jax.Array, list[jax.Array]]:
-    """Move boundary rows to the front, in order, carrying `columns` along.
+    """Move flagged rows to the front, in order, carrying `columns` along.
 
-    One sort keyed on where(flag, position, P) with the columns as payload.
-    Returns (positions int32 [P] with tail = P, compacted columns).
-    Cheaper than boundary-position sort + per-column gathers: TPU gathers
-    run ~98 Melem/s while widening a sort by one payload costs ~20 ms per
-    16.7M rows (tools/microbench.py).
+    An exclusive cumsum of the flags gives each flagged row its output
+    slot; one scatter to unique destinations places the source positions
+    (unflagged rows get distinct out-of-range slots and drop), and each
+    column is one gather.  Returns (positions int32 [P] with tail = P,
+    compacted columns with tail = 0).  Measured faster than the one-sort
+    form on the GPU at the dedupe batch size (PERF.md).
     """
     p = flag.shape[0]
     arange = jnp.arange(p, dtype=jnp.int32)
-    key = jnp.where(flag, arange, p)
-    out = jax.lax.sort((key,) + tuple(columns), num_keys=1)
-    return out[0], list(out[1:])
+    dst = jnp.where(flag, jnp.cumsum(flag, dtype=jnp.int32) - 1, p + arange)
+    pos = jnp.full((p,), p, jnp.int32).at[dst].set(
+        arange, mode="drop", unique_indices=True
+    )
+    live = pos < p
+    return pos, [
+        jnp.where(live, jnp.take(c, pos, mode="clip"), jnp.zeros((), c.dtype))
+        for c in columns
+    ]
 
 
 def uniform_prefix_nk(spec: KmerSpec) -> int:
@@ -132,22 +138,14 @@ def uniform_prefix_nk(spec: KmerSpec) -> int:
     The msb operand contributes spec.top_lane_bits of key (the invalid
     flag shares it) when the top lane is narrow, or zero key bits (a
     standalone flag column) when the top lane is full; every further
-    operand adds 32.  r4 shipped nk=2 for narrow top lanes, capping the
-    prefix at top_lane_bits+32 bits — at k=113 (2-bit top lane) that is
-    34 bits and 9.6M-row batches collide essentially always (ADVICE r4
-    high).  Covering >= 64 bits makes the within-batch collision
-    probability ~P^2/2^65 at every k; sortbench (r4) shows comparator
-    WIDTH is cheap next to column movement, so the extra key lane costs
-    little.
+    operand adds 32.  A fixed nk=2 would cap the prefix at
+    top_lane_bits+32 bits — at k=113 (2-bit top lane) that is 34 bits and
+    9.6M-row batches would collide essentially always.  Covering >= 64
+    bits makes the within-batch collision probability ~P^2/2^65 at
+    every k.
     """
     key_bits_in_top = spec.top_lane_bits if spec.top_lane_bits < 32 else 0
     return 1 + -(-max(1, 64 - key_bits_in_top) // 32)
-
-
-def _pallas_compactable(p: int) -> bool:
-    from tsxcount_tpu.ops.pallas_compact import DEFAULT_TILE
-
-    return p % DEFAULT_TILE == 0 and jax.default_backend() == "tpu"
 
 
 def _sort_uniform_prefix(ops: tuple, spec: KmerSpec,
@@ -168,12 +166,11 @@ def _sort_uniform_prefix(ops: tuple, spec: KmerSpec,
     collide_mode:
       * "cond": lax.cond fallback to the full multi-key sort.  Both
         branches compile — the fallback branch's sort temps DOUBLE peak
-        HBM even though it virtually never executes (the r3 k=127 l=25
-        OOM cause).  Returns (sorted_ops, None).
+        device memory even though it virtually never executes.  Returns (sorted_ops, None).
       * "flag": no fallback compiled; returns (sorted_ops, collided bool
         scalar).  The caller accumulates the flag without syncing and
         retries the ingest with the full sort if it ever fires
-        (detect + host-side retry, VERDICT r3 #2).
+        (detect + host-side retry).
     """
     nk = uniform_prefix_nk(spec)
     if len(ops) <= nk:
@@ -209,7 +206,6 @@ def count_unique(kmers, valid: jax.Array,
                  weights: jax.Array | None = None,
                  spec: KmerSpec | None = None,
                  max_multiplicity: int | None = None,
-                 force_pallas: bool | None = None,
                  uniform_prefix: bool = False,
                  collide_mode: str = "cond") -> UniqueCounts:
     """Exact histogram of the valid rows of `kmers`.
@@ -240,9 +236,6 @@ def count_unique(kmers, valid: jax.Array,
         if spec is None:
             spec = _spec_from_lanes(lanes)
         ops = pack_flag_key(kmers, ~valid, spec)
-    use_pallas = (
-        _pallas_compactable(p) if force_pallas is None else force_pallas
-    )
 
     sort_ops = (
         (lambda o: _sort_uniform_prefix(o, spec, collide_mode))
@@ -250,29 +243,7 @@ def count_unique(kmers, valid: jax.Array,
         else (lambda o: (jax.lax.sort(o, num_keys=len(o)), None))
     )
     collided = None
-    if weights is None and use_pallas:
-        # TPU fast path: the boundary-row compaction (the second full
-        # lax.sort of the XLA path below) becomes one linear Pallas pass
-        from tsxcount_tpu.ops.pallas_compact import compact_flagged
-
-        ops_sorted, collided = sort_ops(ops)
-        flag = _boundary_flags(ops_sorted)
-        arange = jnp.arange(p, dtype=jnp.int32)
-        rep = compact_flagged(
-            flag.astype(jnp.int32),
-            tuple(ops_sorted) + (arange,),
-            interpret=jax.default_backend() != "tpu",
-        )
-        rep = [c[:p] for c in rep]
-        n_flags = jnp.sum(flag, dtype=jnp.int32)
-        # junk tail -> clamp boundary positions to p so diffs vanish there
-        pos = jnp.where(arange < n_flags, rep[-1], p)
-        pos_next = jnp.concatenate([pos[1:], jnp.full((1,), p, jnp.int32)])
-        counts = pos_next - pos
-        ukeys, uinvalid = unpack_flag_key(rep[:-1], spec)
-        inv_sorted0 = _invalid_bits(ops_sorted[0], ops_sorted, spec)
-        n_unique = jnp.sum(flag & ~inv_sorted0, dtype=jnp.int32)
-    elif weights is None:
+    if weights is None:
         ops_sorted, collided = sort_ops(ops)
         flag = _boundary_flags(ops_sorted)
         pos, rep = compact_rows(flag, ops_sorted)
@@ -372,54 +343,6 @@ def _segmented_sum_rev(vals: jax.Array, flag: jax.Array,
     return x
 
 
-def _segmented_sum_rev_u64(lo: jax.Array, hi: jax.Array, flag: jax.Array,
-                           max_fanin: int) -> tuple[jax.Array, jax.Array]:
-    """First-row-anchored segmented sum of 64-bit (lo uint32, hi int32)
-    column pairs — the carry-aware twin of _segmented_sum_rev, used when
-    counts ride the merge as two words instead of three digit lanes."""
-    p = lo.shape[0]
-    endf = jnp.concatenate([flag[1:], jnp.ones((1,), jnp.bool_)])
-    f = endf
-    d = 1
-    while d < max_fanin and d < p:
-        lo_s = jnp.concatenate([lo[d:], jnp.zeros((d,), lo.dtype)])
-        hi_s = jnp.concatenate([hi[d:], jnp.zeros((d,), hi.dtype)])
-        f_s = jnp.concatenate([f[d:], jnp.ones((d,), jnp.bool_)])
-        add_lo = jnp.where(f, jnp.uint32(0), lo_s)
-        new_lo = lo + add_lo
-        carry = (new_lo < add_lo).astype(hi.dtype)  # uint32 wraparound
-        hi = hi + jnp.where(f, 0, hi_s) + carry
-        lo = new_lo
-        f = f | f_s
-        d *= 2
-    return lo, hi
-
-
-def digits_to_u64(d: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Digit triples int32 [..., 3] (base 2^20) -> (lo uint32, hi int32)."""
-    d0 = d[..., 0].astype(jnp.uint32)
-    d1 = d[..., 1].astype(jnp.uint32)
-    d2 = d[..., 2].astype(jnp.uint32)
-    # value = d0 + d1*2^20 + d2*2^40 with digits < 2^20: d2 has no bits
-    # below 32, so lo = d0 | low 12 bits of d1 shifted up
-    lo = d0 | (d1 << 20)
-    hi = (d1 >> 12) | (d2 << 8)
-    return lo, hi.astype(jnp.int32)
-
-
-def u64_to_digits(lo: jax.Array, hi: jax.Array) -> jax.Array:
-    """(lo uint32, hi int32) -> digit triples int32 [..., 3] (base 2^20)."""
-    hi_u = hi.astype(jnp.uint32)
-    d0 = lo & jnp.uint32(COUNT_DIGIT_MASK)
-    # d1's low 12 bits sit in lo[20:32], its high 8 bits in hi[0:8]
-    d1 = (lo >> 20) | ((hi_u & jnp.uint32(0xFF)) << 12)
-    d2 = hi_u >> 8
-    return jnp.stack(
-        [d0.astype(jnp.int32), d1.astype(jnp.int32), d2.astype(jnp.int32)],
-        axis=-1,
-    )
-
-
 # --- count digits -----------------------------------------------------------
 
 def renorm_digits(d: jax.Array) -> jax.Array:
@@ -445,6 +368,33 @@ def int32_to_digits(c: jax.Array) -> jax.Array:
     d1 = (c >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK
     d2 = jnp.zeros_like(c)
     return jnp.stack([d0, d1, d2], axis=-1)
+
+
+_SUM_BLOCK = 2048  # 2048 digits below 2^20 sum below 2^31
+
+
+def digit_column_sums(cols: Sequence[jax.Array]) -> jax.Array:
+    """Per-block sums of digit columns (int32 [N] each) -> [blocks, D].
+
+    Exact in int32: a renormalized digit is below 2^20, so a block of
+    _SUM_BLOCK of them sums below 2^31.  The host adds the blocks in int64
+    (digit_sums_to_int) — JAX runs 32-bit unless x64 is enabled."""
+    n = cols[0].shape[0]
+    pad = -n % _SUM_BLOCK
+    return jnp.stack([
+        jnp.pad(c.astype(jnp.int32), (0, pad)).reshape(-1, _SUM_BLOCK)
+        .sum(axis=1)
+        for c in cols
+    ], axis=1)
+
+
+def digit_sums_to_int(block_sums) -> int:
+    """Host side of digit_column_sums: the exact total count."""
+    import numpy as np
+
+    per_digit = np.asarray(block_sums).astype(np.int64).sum(axis=0)
+    return sum(int(v) << (COUNT_DIGIT_BITS * i)
+               for i, v in enumerate(per_digit))
 
 
 assert COUNT_DIGITS == 3, "digit helpers assume 3 lanes"

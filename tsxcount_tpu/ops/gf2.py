@@ -1,4 +1,4 @@
-"""Bijective GF(2) matrix hash — the TPU re-design of BijectiveKMapping.
+"""Bijective GF(2) matrix hash — the batched re-design of BijectiveKMapping.
 
 The reference hashes a 2k-bit k-mer by multiplying it with a random
 invertible 2k x 2k binary matrix: per output bit, AND a matrix row with the
@@ -7,9 +7,8 @@ key and take popcount parity (reference src/tsxcount/BijectiveKMapping.h:
 GF(2), BijectiveKMapping.h:643-766) lets the table reconstruct k-mers from
 slots (TSXHashMap.h:660-722).
 
-TPU formulation: over GF(2), parity(row AND key) == (row . key) mod 2 with
-bits as elements — so hashing a *batch* of keys is one int8 matmul on the
-MXU: bits[N, 2k] @ A^T[2k, 2k] & 1.  The matrix is generated host-side with
+Batched formulation: over GF(2), parity(row AND key) == (row . key) mod 2 with
+bits as elements — so hashing a *batch* of keys is one int8 matmul: bits[N, 2k] @ A^T[2k, 2k] & 1.  The matrix is generated host-side with
 seeded numpy (deterministic by default, unlike the reference's
 srand(time(NULL)) at BijectiveKMapping.h:84) and its invertibility is
 guaranteed by Gauss-Jordan over GF(2) with retry.
@@ -79,7 +78,7 @@ class GF2Hash(BijectiveFunction):
             self.inverse = np.eye(self.bits, dtype=np.uint8)
         else:
             self.matrix, self.inverse = random_invertible_gf2(self.bits, seed)
-        # transposed int8 copies for the MXU matmul (bits @ A^T)
+        # transposed int8 copies for the matmul (bits @ A^T)
         self._mat_t = jnp.asarray(self.matrix.T, dtype=jnp.int8)
         self._inv_t = jnp.asarray(self.inverse.T, dtype=jnp.int8)
 
@@ -106,7 +105,11 @@ class GF2Hash(BijectiveFunction):
         n, lanes = keys.shape
         sh = np.arange(32, dtype=np.uint32)
         bits = ((keys[:, :, None] >> sh) & 1).reshape(n, lanes * 32)[:, : self.bits]
-        hbits = (bits.astype(np.int64) @ mat.T.astype(np.int64)) & 1
+        # float64 products are exact here (sums <= 2k < 2^53) and run
+        # through BLAS; an integer matmul is orders of magnitude slower
+        hbits = (
+            bits.astype(np.float64) @ mat.T.astype(np.float64)
+        ).astype(np.int64) & 1
         pad = lanes * 32 - self.bits
         hb = np.concatenate([hbits, np.zeros((n, pad), np.int64)], axis=1)
         hb = hb.reshape(n, lanes, 32).astype(np.uint32)

@@ -1,6 +1,6 @@
 """Multi-lane (stacked uint32) key arithmetic.
 
-The TPU-native replacement for the reference's UBigInt bit machinery
+The vectorized replacement for the reference's UBigInt bit machinery
 (shift/and/or/compare over uint8 fields, reference src/tsxutils/UBigInt.h:
 932-1004 shifts, 545-567 compare): a wide key is `(..., lanes)` uint32,
 little-endian, and every op is a vectorized lane expression — no loops over

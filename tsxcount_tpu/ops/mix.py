@@ -1,19 +1,18 @@
-"""Cheap VPU mixing hash — a uniform sort prefix without the GF(2) matmul.
+"""Cheap mixing hash — a uniform sort prefix without the GF(2) matmul.
 
-SURVEY §7 hard-part #1, second attack (r4): the k>=31 dedupe sort pays a
-`lanes(+1)`-operand lexicographic lax.sort.  The r3 hash-first experiment
-showed a 64-bit uniform prefix shrinks the comparator to 2-3 columns, but
-the bijective GF(2) hash that produced it (ops/gf2.py — the reference's
-BijectiveKMapping analog) costs a per-position bit-unpack -> MXU matmul ->
-bit-pack, which outweighed the narrower sort single-chip.
+SURVEY §7 hard-part #1, second attack: the k>=31 dedupe sort pays a
+`lanes(+1)`-operand lexicographic lax.sort.  A 64-bit uniform prefix
+shrinks the comparator to 2-3 columns, but the bijective GF(2) hash that
+produces one (ops/gf2.py — the reference's BijectiveKMapping analog) costs
+a per-position bit-unpack -> matmul -> bit-pack.
 
 A sort prefix does not need bijectivity — only uniformity.  Equal keys must
 agree (any function of the key does), distinct keys should rarely collide,
 and collisions are DETECTED exactly (adjacent rows equal in the prefix but
 differing in a payload lane) and handled by the caller (ops/count.py
 `collide_mode`).  So: a murmur3-style multiply-xor finalizer per lane,
-folded across lanes into two uint32 accumulators — pure elementwise VPU
-ops, ~10 instructions per lane, no MXU, no bit matrix, nothing to invert.
+folded across lanes into two uint32 accumulators — pure elementwise ops,
+~10 instructions per lane, no matmul, no bit matrix, nothing to invert.
 
 The "extended key" layout this enables: store rows as
 [lane_0..lane_{L-1}, mix_lo, mix_hi] (lsb-first, so msb-first sort order is
@@ -73,7 +72,7 @@ def mix_cols(cols: Sequence[jax.Array]) -> tuple[jax.Array, jax.Array]:
 
     Returns (mix_lo, mix_hi) uint32 [P] columns.  Deterministic function of
     the key only — equal keys always agree across batches/hosts (required
-    for sharded routing).  Elementwise VPU ops only.
+    for sharded routing).  Elementwise ops only.
     """
     if len(cols) > len(_LANE_MULT_A):
         raise ValueError(f"mix_cols supports up to {len(_LANE_MULT_A)} lanes")
@@ -160,9 +159,8 @@ def strip_mix(keys_ext) -> jax.Array:
 # (not just a prefix), built as an unbalanced XOR-Feistel over the uint32
 # lanes.  This is a drop-in replacement for GF2Hash in the hash-first path:
 # stores hold the image, exports invert on host, the dedupe sort compares
-# only the top 64 image bits — but "apply" is ~30 VPU ops per lane instead
-# of a per-position bit-unpack -> MXU matmul -> bit-pack (the measured r3
-# cost that made GF(2) hash-first a net loss, core/counter.py notes).
+# only the top 64 image bits — but "apply" is ~30 elementwise ops per lane
+# instead of a per-position bit-unpack -> matmul -> bit-pack.
 #
 # Bijectivity: XOR-Feistel rounds hi ^= F(lo); lo ^= G(hi); hi ^= F2(lo)
 # invert by replaying in reverse order.  The top lane's F output is masked

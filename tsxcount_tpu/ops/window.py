@@ -3,7 +3,7 @@
 The reference materializes every window as a std::string and re-packs it bit
 by bit (`createKMers` reference src/mains/testExecution.h:15-36 +
 `fromSequence` src/utils/SequenceUtils.h:86-160) — a per-kmer scalar loop.
-The TPU formulation is a *shift network* with zero gathers:
+The formulation here is a *shift network* with zero gathers:
 
 With bases packed 16-per-uint32 LSB-first and positions p = 16q + s
 (s in 0..15), lane j of the window starting at p is bits
@@ -12,7 +12,8 @@ With bases packed 16-per-uint32 LSB-first and positions p = 16q + s
     lane_j(p) = (words[q+j] >> 2s) | (words[q+j+1] << (32-2s))
 
 There are only 16 distinct shifts, so we precompute 16 shifted streams and
-every k-mer lane is a contiguous slice — pure VPU work that XLA fuses.
+every k-mer lane is a contiguous slice — pure elementwise work that XLA
+fuses.
 """
 
 from __future__ import annotations
@@ -88,8 +89,7 @@ def intervals_to_valid(ivs: jax.Array, batch: BatchSpec) -> jax.Array:
     [start, end) runs of valid window positions; unused slots hold the
     sentinel 0xFFFFFFFF (sorts last, decodes to an empty mask).
 
-    Expansion is word-granular and GATHER-FREE (TPU gathers are slow; a
-    searchsorted formulation cost ~45 ms/batch at bench shapes): merge the
+    Expansion is word-granular and gather-free: merge the
     interval starts with each 32-position word's top position in ONE sort,
     then carry each interval's [start, end) forward to the words after it
     with running maxima (interval starts AND ends are both ascending, so

@@ -4,8 +4,8 @@ The reference is single-node shared-memory only (SURVEY.md §2.3); this module
 is the "beyond the reference" scale-out path.  Design:
 
   * one SPMD program: `jax.distributed.initialize` then the same
-    ShardedKmerCounter step over a mesh spanning every process's devices —
-    XLA routes the all_to_all over ICI within a slice and DCN across hosts;
+    ShardedKmerCounter step over a mesh spanning every process's devices,
+    with XLA routing the all_to_all between them;
   * input splits by *byte offset*: each host opens only its 1/N byte range
     of the (shared) file and the native parser resyncs to a record boundary
     (FASTQ 4-line discipline, see _native/fastxpack.cpp fxp_open_range) —

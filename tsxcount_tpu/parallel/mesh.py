@@ -1,10 +1,11 @@
 """Device mesh helpers for the sharded counter.
 
 The reference's only scaling axis is OpenMP threads over cache-coherent
-shared memory (reference src/mains/main.cpp:132-218); the TPU equivalent is
-a `jax.sharding.Mesh` whose `shard` axis owns disjoint hash-prefix ranges of
-the count table, with k-mers routed to owners by `all_to_all` over ICI/DCN
-(SURVEY.md §2.3).
+shared memory (reference src/mains/main.cpp:132-218); the equivalent here is
+a flat 1-D `jax.sharding.Mesh` whose `shard` axis owns disjoint hash-prefix
+ranges of the count table, with k-mers routed to owners by `all_to_all`
+(SURVEY.md §2.3).  Every GPU of a host reaches every other at the same
+rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
